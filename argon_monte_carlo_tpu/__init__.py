@@ -1,12 +1,12 @@
-"""argon_monte_carlo_tpu: a TPU-native hard-sphere argon Monte Carlo engine.
+"""argon_monte_carlo_tpu: a JAX hard-sphere argon Monte Carlo engine.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 reference CPU implementation (Lightbrite88/Argon_Monte_Carlo): time-driven
 1:1 hard-sphere collision Monte Carlo over cube and thruster-pore
 geometries with specular and Debye-energized walls, free-path histograms,
 and per-step momentum/energy ledgers.
 
-See ARCHITECTURE.md for the layer map and the TPU-first design decisions.
+See ARCHITECTURE.md for the layer map and the design decisions.
 """
 
 __version__ = "0.1.0"

@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+from scipy.optimize import curve_fit
 
 from .state import Measurements
 
@@ -30,44 +31,25 @@ def fit_inv_function(x, coeff_1, coeff_2, coeff_3):
 
 def fit_exponential(bin_edges: np.ndarray, densities: np.ndarray,
                     p0=(1.4e7, -1.1e7), maxfev: int = 25000):
-    """Least-squares exponential fit; returns (a, b).
-
-    Uses scipy.optimize.curve_fit when available (the reference's tool),
-    otherwise a log-linear weighted least-squares fallback.
-    """
+    """Least-squares exponential fit with scipy.optimize.curve_fit (the
+    reference's tool); returns (a, b)."""
     x = np.asarray(bin_edges, dtype=np.float64)
     y = np.asarray(densities, dtype=np.float64)
-    try:
-        from scipy.optimize import curve_fit
-
-        popt, _ = curve_fit(fit_exp_function, x, y, p0=list(p0),
-                            maxfev=maxfev)
-        return float(popt[0]), float(popt[1])
-    except ImportError:
-        mask = y > 0
-        if mask.sum() < 2:
-            return float("nan"), float("nan")
-        # log y = log a + b x, weighted by y (approximates LS on y).
-        w = y[mask]
-        A = np.stack([np.ones(mask.sum()), x[mask]], axis=1)
-        coef = np.linalg.lstsq(A * w[:, None], np.log(w) * w, rcond=None)[0]
-        return float(np.exp(coef[0])), float(coef[1])
+    popt, _ = curve_fit(fit_exp_function, x, y, p0=list(p0), maxfev=maxfev)
+    return float(popt[0]), float(popt[1])
 
 
 def fit_inverse(bin_edges: np.ndarray, densities: np.ndarray,
                 p0=(1.0, 0.0, -3.0), maxfev: int = 25000):
-    """Inverse-power fit a(x-b)^c; returns (a, b, c) or NaNs without scipy."""
+    """Inverse-power fit a(x-b)^c; returns (a, b, c), or NaNs when the
+    fit does not converge."""
     try:
-        from scipy.optimize import curve_fit
-
         popt, _ = curve_fit(fit_inv_function, np.asarray(bin_edges),
                             np.asarray(densities), p0=list(p0),
                             maxfev=maxfev)
-        return tuple(float(v) for v in popt)
-    except ImportError:
-        return (float("nan"),) * 3
     except RuntimeError:
         return (float("nan"),) * 3
+    return tuple(float(v) for v in popt)
 
 
 @dataclasses.dataclass(frozen=True)

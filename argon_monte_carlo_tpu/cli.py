@@ -24,7 +24,7 @@ import numpy as np
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="argon_monte_carlo_tpu",
-        description="TPU-native hard-sphere argon Monte Carlo",
+        description="JAX hard-sphere argon Monte Carlo",
     )
     sub = p.add_subparsers(dest="workload", required=True)
     for name in ("cube", "pore", "temperature_pore"):
@@ -72,7 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
                        help="JSONL metrics path (default: <out>/metrics.jsonl)")
         w.add_argument("--mesh", type=int, default=1,
                        help="number of devices for the sharded engine "
-                            "(1 = single chip)")
+                            "(1 = single device)")
         w.add_argument("--quiet", action="store_true")
         w.add_argument("--plot", action="store_true",
                        help="save the 4-panel histogram figure "
@@ -126,8 +126,36 @@ def make_config(args):
     return cfg
 
 
+@dataclasses.dataclass
+class RunResult:
+    """What one CLI run leaves behind, for callers that drive ``run()``
+    in-process (``chip_smoke.py``): the simulation object, the final
+    state, the finalized measurements and the per-step ledgers."""
+
+    cfg: object
+    sim: object
+    state: object
+    measure: object
+    momentum_z: np.ndarray
+    energy_cold: np.ndarray
+    energy_hot: np.ndarray
+    nonfinite: np.ndarray
+    num_steps: int
+    elapsed_s: float
+
+
 def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+def run(argv=None) -> RunResult:
+    """Parse ``argv``, run the workload, write its files (see module
+    docstring) and return the ``RunResult``."""
+    from .utils.cache import enable_compile_cache
+
     args = build_parser().parse_args(argv)
+    enable_compile_cache()
     if args.dtype == "float64":
         # Without this, jax silently truncates every array to float32
         # (the round-3 cube run did exactly that and then hit the CPU
@@ -171,7 +199,7 @@ def main(argv=None) -> int:
         print(f"{args.workload}: N={n} steps={num_steps} dt={cfg.dt:.4e} "
               f"broadphase={cfg.engine.broadphase} dtype={cfg.engine.dtype}")
 
-    all_momentum, all_ehot, all_ecold = [], [], []
+    all_momentum, all_ehot, all_ecold, all_nonfinite = [], [], [], []
     step = start_step
     next_ckpt = (
         step + args.checkpoint_every if args.checkpoint_every else None
@@ -190,6 +218,7 @@ def main(argv=None) -> int:
         all_momentum.append(np.asarray(metrics.momentum_z))
         all_ehot.append(np.asarray(metrics.energy_hot))
         all_ecold.append(np.asarray(metrics.energy_cold))
+        all_nonfinite.append(np.asarray(metrics.nonfinite))
         step += chunk
         if not args.quiet:
             print(f"  step {step}/{start_step + num_steps}  "
@@ -253,7 +282,15 @@ def main(argv=None) -> int:
               f"({num_steps * n / max(elapsed, 1e-9):.3e} "
               f"particle-steps/sec)")
     logger.close()
-    return 0
+    def cat(chunks):
+        return np.concatenate(chunks) if chunks else np.zeros(0)
+
+    return RunResult(
+        cfg=cfg, sim=sim, state=state, measure=measure,
+        momentum_z=cat(all_momentum), energy_cold=cat(all_ecold),
+        energy_hot=cat(all_ehot), nonfinite=cat(all_nonfinite),
+        num_steps=num_steps, elapsed_s=elapsed,
+    )
 
 
 if __name__ == "__main__":

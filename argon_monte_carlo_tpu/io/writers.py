@@ -7,7 +7,9 @@ Temperature_Pore_MC.py:902-933):
   the 200 left bin edges and the density-normalized counts, each written
   as ``str(ndarray)`` (numpy repr with unlimited threshold).
 * ``momentum_energy.csv`` -- pandas DataFrame of per-step Momentum,
-  EnergyCold, EnergyHot with the row index = timestep.
+  EnergyCold, EnergyHot with the row index = timestep (``df.to_csv``:
+  header ``,Momentum,EnergyCold,EnergyHot``, floats as Python reprs).
+  Written here with the plain csv format, no pandas needed.
 
 We reproduce both formats exactly so downstream consumers of the
 reference's artifacts (e.g. graph_sim_data.py-style replotters) can read
@@ -69,26 +71,16 @@ def write_momentum_energy_csv(momentum_z, energy_cold, energy_hot,
     """Per-step ledger CSV (Temperature_Pore_MC.py:928-933).
 
     Column order and the unnamed index column match the reference
-    artifact (see /root/reference/momentum_energy.csv header
-    ",Momentum,EnergyCold,EnergyHot").
+    artifact (runs/matched_golden/reference_run/momentum_energy.csv,
+    header ",Momentum,EnergyCold,EnergyHot").
     """
-    try:
-        import pandas as pd
-
-        df = pd.DataFrame({
-            "Momentum": np.asarray(momentum_z, dtype=np.float64),
-            "EnergyCold": np.asarray(energy_cold, dtype=np.float64),
-            "EnergyHot": np.asarray(energy_hot, dtype=np.float64),
-        })
-        df.to_csv(path)
-    except ImportError:  # pandas is optional; plain-csv fallback
-        m = np.asarray(momentum_z, dtype=np.float64)
-        c = np.asarray(energy_cold, dtype=np.float64)
-        h = np.asarray(energy_hot, dtype=np.float64)
-        with open(path, "w") as f:
-            f.write(",Momentum,EnergyCold,EnergyHot\n")
-            for i in range(len(m)):
-                f.write(f"{i},{m[i]!r},{c[i]!r},{h[i]!r}\n")
+    m = np.asarray(momentum_z, dtype=np.float64).tolist()
+    c = np.asarray(energy_cold, dtype=np.float64).tolist()
+    h = np.asarray(energy_hot, dtype=np.float64).tolist()
+    with open(path, "w") as f:
+        f.write(",Momentum,EnergyCold,EnergyHot\n")
+        for i, row in enumerate(zip(m, c, h)):
+            f.write(f"{i},{row[0]!r},{row[1]!r},{row[2]!r}\n")
     return path
 
 

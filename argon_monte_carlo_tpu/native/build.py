@@ -3,30 +3,46 @@
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "oracle.cpp")
-_LIB = os.path.join(_DIR, "liboracle.so")
 
 _cached = None
 
 
+def library_path() -> str:
+    """``liboracle-<sha256 of oracle.cpp, 16 hex>.so`` beside the source:
+    a library built from any other source text has another name, so a
+    stale or foreign binary is never loaded."""
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(_DIR, f"liboracle-{digest}.so")
+
+
 def build(force: bool = False) -> str:
-    """Compile oracle.cpp to a shared library (no-op when up to date)."""
-    if (not force and os.path.exists(_LIB)
-            and os.path.getmtime(_LIB) >= os.path.getmtime(_SRC)):
-        return _LIB
-    subprocess.run(
-        ["g++", "-O2", "-shared", "-fPIC", _SRC, "-o", _LIB],
-        check=True,
-    )
-    return _LIB
+    """Compile oracle.cpp to a shared library (no-op when one built from
+    this exact source exists).  The compiler writes a private temporary
+    name that is renamed into place, so concurrent builders never load a
+    half-written file."""
+    lib = library_path()
+    if not force and os.path.exists(lib):
+        return lib
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(["g++", "-O2", "-shared", "-fPIC", _SRC, "-o", tmp],
+                       check=True)
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return lib
 
 
 class Oracle:
-    """Typed ctypes wrapper over liboracle.so."""
+    """Typed ctypes wrapper over the built oracle library."""
 
     def __init__(self, lib: ctypes.CDLL):
         self._lib = lib
@@ -47,6 +63,18 @@ class Oracle:
         lib.oracle_pair_collisions.restype = None
         lib.oracle_pair_collisions.argtypes = [
             dp, dp, dp, dp, dp, ctypes.c_int64, d
+        ]
+        lib.oracle_specular_planes.restype = None
+        lib.oracle_specular_planes.argtypes = [
+            dp, dp, dp, ctypes.c_int64, ctypes.c_int, d
+        ]
+        lib.oracle_specular_cylinders.restype = None
+        lib.oracle_specular_cylinders.argtypes = [
+            dp, dp, dp, ctypes.c_int64, d
+        ]
+        lib.oracle_thermal_speeds.restype = None
+        lib.oracle_thermal_speeds.argtypes = [
+            dp, dp, ctypes.c_int64, d, d, d
         ]
 
     @staticmethod
@@ -94,6 +122,42 @@ class Oracle:
         a2, b2 = self._buf(vel)
         t = self._lib.oracle_specular_cylinder(b1, b2, float(radius))
         return t, a1, a2
+
+    def specular_planes(self, pos, vel, axis, plane):
+        """Vectorized: pos/vel (n, 3); returns (t (n,), pos', vel')."""
+        import numpy as np
+
+        a1, b1 = self._buf(pos)
+        a2, b2 = self._buf(vel)
+        t = np.zeros(a1.shape[0], np.float64)
+        self._lib.oracle_specular_planes(
+            b1, b2, t.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            a1.shape[0], int(axis), float(plane))
+        return t, a1, a2
+
+    def specular_cylinders(self, pos, vel, radius):
+        """Vectorized: pos/vel (n, 3); returns (t (n,), pos', vel');
+        t < 0 marks rows whose backward ray misses the circle."""
+        import numpy as np
+
+        a1, b1 = self._buf(pos)
+        a2, b2 = self._buf(vel)
+        t = np.zeros(a1.shape[0], np.float64)
+        self._lib.oracle_specular_cylinders(
+            b1, b2, t.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            a1.shape[0], float(radius))
+        return t, a1, a2
+
+    def thermal_speeds(self, speed, surface_energy, alpha, mass):
+        """Vectorized thermal_speed over a (n,) speed array."""
+        import numpy as np
+
+        a1, b1 = self._buf(speed)
+        out = np.zeros(a1.shape[0], np.float64)
+        self._lib.oracle_thermal_speeds(
+            b1, out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            a1.shape[0], float(surface_energy), float(alpha), float(mass))
+        return out
 
     def thermal_speed(self, speed, surface_energy, alpha, mass):
         return self._lib.oracle_thermal_speed(

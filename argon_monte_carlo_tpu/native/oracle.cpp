@@ -1,8 +1,8 @@
 // Native double-precision physics oracle for differential testing.
 //
 // The reference has no native components (SURVEY.md section 2: 100%
-// Python), so this framework's native layer serves a different,
-// TPU-specific purpose: an INDEPENDENT scalar implementation of every
+// Python), so this framework's native layer serves a different
+// purpose: an INDEPENDENT scalar implementation of every
 // physics kernel, written directly from the physical equations, that the
 // fused/vectorized JAX device kernels are tested against on random
 // inputs (tests/test_native_oracle.py).  Catching an f32-fusion or
@@ -10,8 +10,8 @@
 // formulation with the device path -- this is it.
 //
 // Build: a single translation unit, no dependencies ->
-//   g++ -O2 -shared -fPIC oracle.cpp -o liboracle.so
-// (driven by native/build.py, loaded via ctypes).
+//   g++ -O2 -shared -fPIC oracle.cpp -o liboracle-<hash>.so
+// (driven by native/build.py at first use, loaded via ctypes).
 
 #include <cmath>
 #include <cstdint>
@@ -147,6 +147,33 @@ void oracle_pair_collisions(double* p1, double* v1, double* p2, double* v2,
         t_out[i] = oracle_pair_collision(p1 + 3 * i, v1 + 3 * i,
                                          p2 + 3 * i, v2 + 3 * i,
                                          collision_range);
+    }
+}
+
+// Vectorized forms of the wall oracles over n rows (arrays of n*3 per
+// field for pos/vel, n for t_out/speed/out).
+void oracle_specular_planes(double* pos, double* vel, double* t_out,
+                            int64_t n, int axis, double plane) {
+    for (int64_t i = 0; i < n; ++i) {
+        t_out[i] = oracle_specular_plane(pos + 3 * i, vel + 3 * i, axis,
+                                         plane);
+    }
+}
+
+void oracle_specular_cylinders(double* pos, double* vel, double* t_out,
+                               int64_t n, double radius) {
+    for (int64_t i = 0; i < n; ++i) {
+        t_out[i] = oracle_specular_cylinder(pos + 3 * i, vel + 3 * i,
+                                            radius);
+    }
+}
+
+void oracle_thermal_speeds(const double* speed, double* out, int64_t n,
+                           double surface_energy, double alpha,
+                           double mass) {
+    for (int64_t i = 0; i < n; ++i) {
+        out[i] = oracle_thermal_speed(speed[i], surface_energy, alpha,
+                                      mass);
     }
 }
 

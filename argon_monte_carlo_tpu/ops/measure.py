@@ -92,8 +92,7 @@ def flush_pending_compacted(measure: Measurements, event_idx: jnp.ndarray,
     ``event_idx`` (E,) holds indices covering every set ``pending_mask``
     lane (a superset is fine -- lanes are filtered by the mask; index n
     = inert padding).  Lets the engine share ONE N-sized nonzero between
-    the histogram flush and the dirty re-search (each N-compaction
-    measured ~9 ms/step at 1M).
+    the histogram flush and the dirty re-search instead of one each.
     """
     n = measure.pending_vals.shape[0]
     emitted = measure.pending_mask[:, None]
@@ -135,11 +134,10 @@ def flush_pending(measure: Measurements, num_bins: int,
     """Flush all staged events: running sums/counts + one histogram update.
 
     ``compact=True`` (default) first compacts the staged events to a
-    fixed ``FLUSH_CAPACITY`` buffer and bins only those: the direct
-    scatter-add of all N*4 mostly-empty lanes measured 35 ms/step at 1M
-    particles on the attached chip (scatter cost is per-row regardless of
-    the weight being zero), while the compaction (one N-cumsum + tiny
-    gather/scatter) is ~6 ms.  ``compact=False`` keeps the dense scatter
+    fixed ``FLUSH_CAPACITY`` buffer and bins only those instead of a
+    direct scatter-add of all N*4 mostly-empty lanes (a scatter touches
+    every row whether or not its weight is zero).  ``compact=False``
+    keeps the dense scatter
     (used inside shard_map where the event count per shard is the lane
     count anyway, and on CPU).
 

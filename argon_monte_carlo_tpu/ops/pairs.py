@@ -1,9 +1,9 @@
 """Verlet reach-pair narrow phase: amortize the neighbour sweep over K steps.
 
 The reference re-sweeps every cell's O(n^2) pairs every timestep
-(Open_Air_Pore_MC.py:160-255).  The per-step sweep is also this engine's
-dominant cost on TPU (measured 127 ms of a 235 ms step at 1M particles),
-yet particles move only ~cr/4 per step, so almost nothing about the
+(Open_Air_Pore_MC.py:160-255).  A per-step sweep is the step's largest
+term by operation count, yet particles move only ~cr/4 per step, so
+almost nothing about the
 neighbourhood changes between steps.  This module rebuilds a *candidate
 pair list* every ``rebuild_interval`` (K) steps and, per step, tests only
 the listed pairs at the exact collision range -- a Verlet list in
@@ -160,7 +160,7 @@ def rebuild(state: ParticleState, grid: collide.DeviceGrid,
                                  pcfg.rebuild_interval, max_reach)
     # ONE-SIDED sweep: each unordered pair is emitted exactly once (the
     # two-sided form discarded one half below anyway); the per-particle
-    # emission expectation halves, so top_k -- and the dominant VPU
+    # emission expectation halves, so top_k -- and the dominant
     # cost of the rebuild's top-k min-passes -- shrinks
     # (default_pair_config sizes on lambda/2).  The sweep additionally
     # scans only the HALF SHELL (14 of 27 neighbour cells; emission
@@ -195,7 +195,7 @@ def rebuild(state: ParticleState, grid: collide.DeviceGrid,
     # stay exactly covered.  This lets the pairs grid run a TIGHT cell
     # capacity (config.pairs_cell_capacity_for: ~3.75-sigma Poisson
     # tail, aligned so group*cap fills 128 lanes exactly) instead of
-    # the sweep's 5-sigma padding -- the rebuild sweep's VPU work
+    # the sweep's 5-sigma padding -- the rebuild sweep's work
     # scales with cap^2 after lane padding.  Residual blindspot: TWO
     # table-dropped particles in the same neighbourhood can't see each
     # other (~(drop rate)^2 ~ 1e-8 of pairs at the chosen tail, and
@@ -215,7 +215,7 @@ def rebuild_finish(cands, cell_overflow, pslot0, mega0, unswept,
     Split out of ``rebuild`` verbatim so the split-rebuild mode
     (EngineConfig.split_rebuild_programs) can jit it as its own
     program; the fused ``rebuild`` composes the same functions in
-    one trace, so its HLO is unchanged (scripts/hlo_hash.py).
+    one trace, so its HLO is unchanged.
     """
     table_dropped = pslot0 >= grid.num_cells * grid.capacity
     if valid_lanes is not None:
@@ -660,7 +660,7 @@ def default_pair_config(n: int, rebuild_interval: int,
     # research budget, and size the research/append buffers for the
     # burst that remains.  top_k starts low: every extra slot is a full
     # masked min-pass over the sweep's (cells, cap, 27*cap) lanes --
-    # the rebuild's dominant VPU cost.
+    # the rebuild's dominant cost.
     research = max(4096, n // 256)
     top_k = 3
     def tail(k):  # OVERDISP * P[Poisson(lam_emit) >= k]

@@ -226,9 +226,8 @@ def gap_energy_interp(table_z_lo: float, table_z_hi: float,
     """Polynomial evaluation of the precomputed gap Debye-energy profile.
 
     A Chebyshev fit of the (smooth) E_surf(z) samples replaces table
-    lookups: per-element gathers from even a 512-entry table cost ~5% of
-    the whole step on TPU, while a degree-12 polynomial is pure fused
-    arithmetic and matches the quadrature to ~1e-9 relative over the
+    lookups: a degree-12 polynomial is pure fused arithmetic with no
+    per-element gather, and matches the quadrature to ~1e-9 relative over the
     60 K gap temperature range.
     """
     import numpy as np

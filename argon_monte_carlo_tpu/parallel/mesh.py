@@ -11,8 +11,10 @@ def make_mesh(n_devices: int | None = None, devices=None) -> jax.sharding.Mesh:
     """A 1-D mesh over ``n_devices`` (default: all visible devices).
 
     The engine decomposes the simulation domain into z-slabs, one per
-    device, with ring-neighbour halo exchange over ICI -- the TPU-native
+    device, with neighbour halo exchange between adjacent slabs -- the
     replacement for the reference's process pool (SURVEY.md section 2.3).
+    The mesh is 1-D: the slabs form a chain, and the devices of one host
+    (NVLink joins 4 H100s all to all) need no topology mapping.
     """
     if devices is None:
         devices = jax.devices()

@@ -1,6 +1,6 @@
 """z-slab domain-decomposed engine over a JAX device mesh.
 
-TPU-native replacement for the reference's single-host multiprocessing
+Device replacement for the reference's single-host multiprocessing
 runtime (Pool/Manager/Value, Open_Air_Pore_MC.py:408-549; SURVEY.md
 section 2.3): the pore is 1D-dominant along z, so each device owns a
 contiguous z-slab with a fixed-capacity particle buffer.  Per step:
@@ -9,7 +9,7 @@ contiguous z-slab with a fixed-capacity particle buffer.  Per step:
    and stateless, so no communication);
 2. *halo exchange*: particles within ``halo_width = 2 x search_radius`` of
    a slab face are copied to the neighbouring device via ``lax.ppermute``
-   (nearest-neighbour ICI traffic, ring-attention style);
+   (nearest-neighbour traffic only);
 3. *pair collisions*: each shard searches partners over local + ghost
    particles, sweeping only its own (halo-padded) window of global grid
    cells.  Because the halo is two search radii deep, both shards see the

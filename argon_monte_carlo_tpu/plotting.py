@@ -58,7 +58,7 @@ def histogram_figure(edges, densities, fit: bool = True, title: str = ""):
 def replot_run(out_dir: str, save_to: str | None = None, fit: bool = True):
     """Rebuild the figure from saved hist_*_data.txt files.
 
-    The TPU-native replacement for graph_sim_data.py (which hard-codes the
+    The replacement for graph_sim_data.py (which hard-codes the
     arrays at graph_sim_data.py:14-89): reads any run directory's saved
     artifacts instead.
     """

@@ -1,7 +1,7 @@
 """Particle state and measurement accumulators as JAX pytrees.
 
 Struct-of-arrays layout: ``pos``/``vel`` are ``(N, 3)`` so elementwise
-physics stays dense on the VPU; kernels that want per-component vectors
+physics stays dense vector arithmetic; kernels that want per-component vectors
 slice columns (XLA keeps these fused).
 
 The reference keeps the same state as twelve separate numpy arrays plus
@@ -75,7 +75,7 @@ class Measurements:
           Open_Air_Pore_MC.py:336-338).
     overflow_count: ACTUAL particle/visibility loss: cell-table slots
           dropped from over-capacity cells plus, in the sharded engine,
-          migration-buffer and receive-side drops (TPU-only diagnostic;
+          migration-buffer and receive-side drops (engine diagnostic;
           no reference analogue).
     halo_trunc_count: sharded engine only -- halo-band lanes that did not
           fit the halo buffer.  These particles are NOT lost (they stay on
@@ -103,8 +103,7 @@ class Measurements:
     hot_spill_count: jax.Array
     # Step-transient staging area for completed-path binning: each event
     # writes its (4,) path values here and ONE scatter per step flushes
-    # them into `hist` (10 per-case scatters were ~30% of the step time
-    # on TPU).  A particle with two collision events in the same step
+    # them into `hist` instead of 10 per-case scatters.  A particle with two collision events in the same step
     # contributes only its last event to the *binned* histogram (the
     # exact sums/counts above still see both); at reference densities
     # that's ~1e-6 of samples.

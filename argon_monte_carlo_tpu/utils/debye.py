@@ -10,7 +10,7 @@ re-evaluates the quadrature *per impact* with a z-dependent temperature ramp
 (Temperature_Pore_MC.py:143-152) -- a per-event host-side numerical
 integration, which is a non-starter on device.
 
-TPU-native replacement: the gap temperature range is only [t_cold, t_hot]
+Device-friendly replacement: the gap temperature range is only [t_cold, t_hot]
 (293..353 K), over which E_surf(T) is smooth, so we precompute E_surf on a
 dense temperature grid at trace time (host, float64, Gauss-Legendre
 quadrature) and linearly interpolate on device.  Interpolation error with a

@@ -12,7 +12,8 @@ for the latest simulation" (reference README.md:23); which stage wrote
 them is not recorded, so the comparison below is reported as evidence,
 not asserted as a hard gate.
 
-Usage (TPU host): python scripts/full_reference_run.py [--steps 20000]
+Usage (GPU host): python scripts/full_reference_run.py [--steps 20000] \
+    [--reference-dir <dir with the reference's hist_* files>]
 """
 
 from __future__ import annotations
@@ -33,7 +34,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=20000)
     ap.add_argument("--out", type=str, default=None)
-    ap.add_argument("--reference-dir", type=str, default="/root/reference")
+    ap.add_argument("--reference-dir", type=str, default=None,
+                    help="directory holding the reference's committed "
+                         "hist_* files (compared when given)")
     ap.add_argument("--stage", default="temperature_pore",
                     choices=["temperature_pore", "pore"],
                     help="pore = Open_Air_Pore_MC stage 2 (all-specular "
@@ -51,6 +54,9 @@ def main() -> int:
     import jax
 
     import argon_monte_carlo_tpu as amc
+    from argon_monte_carlo_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     from argon_monte_carlo_tpu.analysis import path_statistics
     from argon_monte_carlo_tpu.io import writers
 
@@ -129,8 +135,8 @@ def main() -> int:
     # (README.md:23) -- matched-config parity lives in
     # runs/matched_golden*; this cross-stage comparison is evidence
     # only and is reported for the temperature_pore stage alone.
-    for name in (writers.AXIS_NAMES if args.stage == "temperature_pore"
-                 else []):
+    compare = args.stage == "temperature_pore" and args.reference_dir
+    for name in (writers.AXIS_NAMES if compare else []):
         ours = read_reference_histogram(
             os.path.join(args.out, f"hist_y_axis_{name}_data.txt"))
         ref = read_reference_histogram(

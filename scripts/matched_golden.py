@@ -1,27 +1,20 @@
-"""Matched-golden histogram parity: this framework vs the ACTUAL
-reference script at an identical reduced configuration (VERDICT r2
-item 5).
+"""Matched-golden histogram parity: this engine vs the reference script
+at one identical reduced configuration.
 
-Round 2's full-scale comparison put total-path histogram correlation at
-0.66 against the COMMITTED reference artifacts -- whose generating stage
-is not recorded (reference README.md:23).  To close the question on
-equal footing, a patched copy of /root/reference/Temperature_Pore_MC.py
-(geometry lengths scaled by REF_SCALE exactly as PoreGeometry.scaled,
-loop truncated to REF_STEPS, matplotlib headless; physics, dt, seeds and
-cell grid untouched) is run on CPU, and this script runs the SAME
-configuration through this framework, then compares on equal footing:
+A patched copy of the reference's Temperature_Pore_MC.py (geometry
+lengths scaled by ``--scale`` exactly as PoreGeometry.scaled, loop cut to
+``--steps``, matplotlib headless; physics, dt, seeds and cell grid
+untouched) was run on CPU; its outputs are committed under
+``runs/matched_golden/reference_run/``.  This script runs the SAME
+configuration through this engine and compares on equal footing:
 
     python scripts/matched_golden.py <ref_run_dir> <out_dir> \
-        [--scale 0.35] [--steps 2500]
+        [--scale 0.35] [--steps 2500] [--ref-log <ref_run_dir>/run.log]
 
-Outputs <out_dir>/report.json plus this framework's 8 histogram txt
-artifacts + momentum CSV, and copies the reference-run artifacts next to
-them.  Pass criteria (report.json "pass_*"): per-axis histogram
-correlation >= 0.97 and measured-MFP ratio within 3% -- both runs see
-identical geometry/N/steps, so only RNG streams and the documented
-statistical-equivalence substitutions (mutual matching, closed-form cone
-sampling) separate them; ~1e5 path samples put per-bin noise well below
-these thresholds.
+It writes <out_dir>/report.json plus this engine's 8 histogram files and
+momentum CSV, and copies the reference-run files next to them.  The
+comparison and its pass rules live in ``argon_monte_carlo_tpu.golden``
+(per-axis histogram correlation >= 0.97, measured-MFP ratio within 3%).
 """
 
 from __future__ import annotations
@@ -32,30 +25,7 @@ import os
 import shutil
 import sys
 
-import numpy as np
-
-AXES = ["total", "x", "y", "z"]
-
-
-def read_ref_artifacts(ref_dir: str):
-    from argon_monte_carlo_tpu.io.writers import read_reference_histogram
-
-    hists = {}
-    for ax in AXES:
-        x = read_reference_histogram(
-            os.path.join(ref_dir, f"hist_x_axis_{ax}_data.txt"))
-        y = read_reference_histogram(
-            os.path.join(ref_dir, f"hist_y_axis_{ax}_data.txt"))
-        hists[ax] = (x, y)
-    return hists
-
-
-def correlation(a: np.ndarray, b: np.ndarray) -> float:
-    a = np.asarray(a, float)
-    b = np.asarray(b, float)
-    if a.std() == 0 or b.std() == 0:
-        return float("nan")
-    return float(np.corrcoef(a, b)[0, 1])
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main() -> int:
@@ -75,123 +45,49 @@ def main() -> int:
                          "holds artifacts (compare-only rerun)")
     args = ap.parse_args()
 
-    import argon_monte_carlo_tpu as amc
-    from argon_monte_carlo_tpu.analysis import path_statistics
-    from argon_monte_carlo_tpu.geometry import PoreGeometry
-    from argon_monte_carlo_tpu.io import writers
+    from argon_monte_carlo_tpu import golden
+    from argon_monte_carlo_tpu.utils.cache import enable_compile_cache
 
+    enable_compile_cache()
     os.makedirs(args.out_dir, exist_ok=True)
     ours_dir = os.path.join(args.out_dir, "ours")
     ref_copy = os.path.join(args.out_dir, "reference_run")
     os.makedirs(ours_dir, exist_ok=True)
     os.makedirs(ref_copy, exist_ok=True)
 
-    geom = PoreGeometry().scaled(args.scale)
-    eng = amc.EngineConfig(dtype="float64", broadphase="cells",
-                           steps_per_epoch=48, narrowphase="pairs",
-                           rebuild_interval=8)
-    if args.stage == "temperature_pore":
-        cfg = amc.temperature_pore_config(geometry=geom, engine=eng)
-    else:
-        cfg = amc.PoreConfig(geometry=geom, engine=eng)  # energized=False
-    n = cfg.num_molecules
-    print(f"matched golden[{args.stage}]: scale={args.scale} N={n} "
-          f"steps={args.steps}", file=sys.stderr)
-
+    energized = args.stage == "temperature_pore"
     summary_path = os.path.join(ours_dir, "summary.json")
     if args.reuse_ours and os.path.exists(summary_path):
-        summary = json.load(open(summary_path))
-        our_mfp = summary["mfp_total"]
+        with open(summary_path) as f:
+            summary = json.load(f)
     else:
-        sim = amc.Simulation(amc.make_workload(cfg))
-        state, measure, metrics = sim.run(num_steps=args.steps)
-        measure = sim.finalize_measure(measure)
-
-        writers.write_histograms(measure, eng.num_bins, eng.hist_range,
-                                 ours_dir)
-        if args.stage == "temperature_pore":
-            writers.write_momentum_energy_csv(
-                np.asarray(metrics.momentum_z),
-                np.asarray(metrics.energy_cold),
-                np.asarray(metrics.energy_hot),
-                os.path.join(ours_dir, "momentum_energy.csv"),
-            )
-        stats = path_statistics(measure, eng.num_bins, eng.hist_range)
-        our_mfp = stats.mean_free_path
-        summary = {
-            "collisions": int(measure.collision_count),
-            "mfp_total": our_mfp,
-            "path_count": int(measure.path_count),
-            "err": int(measure.err_count),
-            "overflow": int(measure.overflow_count),
-        }
+        summary = golden.run_matched_config(
+            ours_dir, scale=args.scale, steps=args.steps,
+            dtype="float64", energized=energized)
         with open(summary_path, "w") as f:
             json.dump(summary, f, indent=2)
+    n = golden.matched_config(args.scale, energized=energized).num_molecules
+    print(f"matched golden[{args.stage}]: scale={args.scale} N={n} "
+          f"steps={args.steps}", file=sys.stderr)
 
     for name in os.listdir(args.ref_dir):
         if name.startswith("hist_") or name == "momentum_energy.csv":
             shutil.copy(os.path.join(args.ref_dir, name), ref_copy)
 
-    ref = read_ref_artifacts(ref_copy)
-    ours = read_ref_artifacts(ours_dir)  # same byte format round-trips
-
-    report = {
-        "config": {"scale": args.scale, "steps": args.steps, "n": int(n)},
-        "ours": summary,
-    }
-    corrs, l1s = {}, {}
-    for ax in AXES:
-        ry = ref[ax][1]
-        oy = ours[ax][1]
-        m = min(len(ry), len(oy))
-        corrs[ax] = correlation(ry[:m], oy[:m])
-        denom = np.abs(ry[:m]).sum()
-        l1s[ax] = float(np.abs(ry[:m] - oy[:m]).sum() / denom) \
-            if denom else float("nan")
-    report["hist_correlation"] = corrs
-    report["hist_l1_rel"] = l1s
-
-    # Reference measured MFP from its log, if given.
     ref_mfp = None
     if args.ref_log and os.path.exists(args.ref_log):
-        for line in open(args.ref_log):
-            # "Simulation mean free path: <value>"
-            if line.strip().startswith("Simulation mean free path:"):
-                ref_mfp = float(line.split(":")[1])
-    report["ref_mfp_total"] = ref_mfp
-    if ref_mfp:
-        report["mfp_ratio"] = our_mfp / ref_mfp
-
-    # Momentum/energy ledger comparison over the common step range
-    # (temperature_pore only: the v1 pore reference script keeps no
-    # ledger and writes no CSV, Open_Air_Pore_MC.py:564-636).
-    if args.stage == "temperature_pore":
-        import pandas as pd
-
-        rcsv = pd.read_csv(os.path.join(ref_copy, "momentum_energy.csv"),
-                           index_col=0)
-        ocsv = pd.read_csv(os.path.join(ours_dir, "momentum_energy.csv"),
-                           index_col=0)
-        m = min(len(rcsv), len(ocsv))
-        led = {}
-        for col in ["Momentum", "EnergyCold", "EnergyHot"]:
-            r = rcsv[col].to_numpy()[:m]
-            o = ocsv[col].to_numpy()[:m]
-            # Means with a z-score on the difference (per-step values are
-            # i.i.d.-ish across steps after the initial transient).
-            se = np.sqrt(r.var() / m + o.var() / m)
-            led[col] = {
-                "ref_mean": float(r.mean()), "ours_mean": float(o.mean()),
-                "z": float((r.mean() - o.mean()) / se) if se else None,
-            }
-        report["ledger"] = led
-
-    report["pass_hist"] = all(
-        (c == c) and c >= 0.97 for c in corrs.values()
-    )
-    report["pass_mfp"] = (ref_mfp is not None
-                          and abs(report["mfp_ratio"] - 1.0) <= 0.03)
-
+        ref_mfp = golden.reference_mfp_from_log(args.ref_log)
+    # The v1 pore reference keeps no ledger and writes no CSV
+    # (Open_Air_Pore_MC.py:564-636), so only the temperature pore has
+    # one to compare.
+    report = {
+        "config": {"scale": args.scale, "steps": args.steps,
+                   "n": n, "dtype": "float64"},
+        "ours": summary,
+    }
+    report.update(golden.compare_runs(ref_copy, ours_dir,
+                                      summary["mfp_total"], ref_mfp,
+                                      ledger=energized))
     with open(os.path.join(args.out_dir, "report.json"), "w") as f:
         json.dump(report, f, indent=2)
     print(json.dumps(report, indent=2))

@@ -9,7 +9,7 @@ impossible (different RNG streams; BASELINE.json asks for statistical
 tolerance under fixed seeds), so the comparison is on the distributional
 statistics of the 250-step ledgers.
 
-Usage (TPU host):  python scripts/parity_run.py [--steps 250] [--out PARITY.md]
+Usage (GPU host):  python scripts/parity_run.py [--steps 250] [--out PARITY.md]
 """
 
 from __future__ import annotations
@@ -22,19 +22,26 @@ import time
 
 import numpy as np
 
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=250)
     ap.add_argument("--out", type=str, default="PARITY.md")
     ap.add_argument("--reference-csv", type=str,
-                    default="/root/reference/momentum_energy.csv")
+                    default=os.path.join(
+                        "runs", "matched_golden", "reference_run",
+                        "momentum_energy.csv"))
     ap.add_argument("--dtype", default="float32")
     args = ap.parse_args()
 
     import jax
 
     import argon_monte_carlo_tpu as amc
+    from argon_monte_carlo_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     from argon_monte_carlo_tpu.io import writers
 
     cfg = amc.temperature_pore_config(

@@ -1,6 +1,6 @@
 """fp32 vs fp64 error study (SURVEY.md section 7 "fp precision").
 
-The TPU engine runs fp32 (positions O(1e-7 m), collision range 3.4e-10 m:
+The engine runs fp32 by default (positions O(1e-7 m), collision range 3.4e-10 m:
 ~2e-3 relative -> f32 keeps ~1e-10 absolute resolution near the pore,
 comfortably below the collision range); CPU validation runs fp64.  This
 study quantifies what fp32 costs physically on the north-star workload:
@@ -22,11 +22,6 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 
 import jax
 
-if jax.devices()[0].platform != "cpu":
-    import jax.extend.backend as _jeb
-
-    jax.config.update("jax_platforms", "cpu")
-    _jeb.clear_backends()
 jax.config.update("jax_enable_x64", True)
 
 import numpy as np

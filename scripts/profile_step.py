@@ -1,64 +1,47 @@
 """Per-op device-time breakdown of the engine step at a given N.
 
-Usage: python scripts/profile_step.py [N] [steps]
-Drives the round-2 narrow-phase optimization (VERDICT r1 item 1): prints
-the fusion-level hotspot table for the Temperature_Pore step so each
-optimization targets the measured top entry rather than a guess.
+Usage: python scripts/profile_step.py [N] [steps] [sweep|pairs] [K]
+
+Runs the temperature pore at N molecules (default: the reference's
+557,649), warms up, times one window, traces another, and prints the
+per-op GPU device-time table.  It needs a GPU: the reduction reads only
+GPU device planes and refuses a trace without them.
 """
+
 import os
 import sys
-import time
 
-import jax
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.environ.get("JAX_CACHE_DIR",
-                   os.path.expanduser("~/.cache/jax_argon")),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+import argon_monte_carlo_tpu as amc  # noqa: E402
+from argon_monte_carlo_tpu.utils import profiling  # noqa: E402
+from argon_monte_carlo_tpu.utils.cache import enable_compile_cache  # noqa: E402
 
-sys.path.insert(0, ".")
 
-import argon_monte_carlo_tpu as amc
-from argon_monte_carlo_tpu.utils import profiling
+def main() -> int:
+    n = int(sys.argv[1]) if len(sys.argv) > 1 else None
+    steps = int(sys.argv[2]) if len(sys.argv) > 2 else 16
+    narrow = sys.argv[3] if len(sys.argv) > 3 else "pairs"
+    k = int(sys.argv[4]) if len(sys.argv) > 4 else 8
+    enable_compile_cache()
+    eng = amc.EngineConfig(dtype="float32", broadphase="cells",
+                           steps_per_epoch=steps, narrowphase=narrow,
+                           rebuild_interval=(k if narrow == "pairs" else 1))
+    cfg = amc.temperature_pore_config(engine=eng)
+    if n is not None:
+        cfg = cfg.scaled_to(n)
+    print(f"N={cfg.num_molecules} narrow={narrow}", file=sys.stderr)
+    log_dir = os.path.join("chiprun_out", "profile_step")
+    ms, rows = profiling.profile_steps(cfg, steps, log_dir)
+    total = sum(r[0] for r in rows)
+    print(f"untraced window: {ms:.3f} ms/step "
+          f"({cfg.num_molecules * 1e3 / ms:.4g} particle-steps/s)")
+    print(f"top ops (device ms over {steps} steps; total of these "
+          f"{total:.3f}):")
+    for dev_ms, count, name in rows:
+        print(f"  {dev_ms:9.3f} ms  x{count:<5d} {name[:110]}")
+    return 0
 
-N = int(sys.argv[1]) if len(sys.argv) > 1 else 1_000_000
-STEPS = int(sys.argv[2]) if len(sys.argv) > 2 else 10
-NARROW = sys.argv[3] if len(sys.argv) > 3 else "sweep"
-K = int(sys.argv[4]) if len(sys.argv) > 4 else 8
 
-eng = amc.EngineConfig(dtype="float32", broadphase="cells",
-                       steps_per_epoch=STEPS,
-                       narrowphase=NARROW,
-                       rebuild_interval=(K if NARROW == "pairs" else 1))
-cfg = amc.temperature_pore_config(engine=eng).scaled_to(N)
-print(f"N={cfg.num_molecules} narrow={NARROW}", file=sys.stderr)
-sim = amc.Simulation(amc.make_workload(cfg))
-state, measure, key = sim.init()
-jax.block_until_ready(state.pos)
-
-# warm (compile)
-state, measure, _ = sim.run(num_steps=STEPS, state=state, measure=measure,
-                            run_key=key)
-_ = float(state.pos[0, 0])
-
-t0 = time.time()
-state, measure, _ = sim.run(num_steps=STEPS, state=state, measure=measure,
-                            run_key=key, start_step=STEPS)
-_ = float(state.pos[0, 0])
-wall = time.time() - t0
-print(f"wall: {wall*1e3/STEPS:.1f} ms/step "
-      f"({cfg.num_molecules*STEPS/wall:.3g} ps/s)", file=sys.stderr)
-
-with profiling.trace("/tmp/prof_step"):
-    state, measure, _ = sim.run(num_steps=STEPS, state=state,
-                                measure=measure, run_key=key,
-                                start_step=2 * STEPS)
-    _ = float(state.pos[0, 0])
-
-rows = profiling.op_breakdown("/tmp/prof_step", top=25)
-total = sum(r[0] for r in rows)
-print(f"top fusions (device ms over {STEPS} steps; total {total:.1f}):")
-for ms, c, name in rows:
-    print(f"  {ms:9.2f} ms  x{c:<5d} {name[:110]}")
+if __name__ == "__main__":
+    sys.exit(main())

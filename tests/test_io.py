@@ -12,6 +12,10 @@ from argon_monte_carlo_tpu.io import checkpoint as ckpt_io
 from argon_monte_carlo_tpu.io import writers
 from argon_monte_carlo_tpu.state import Measurements
 
+REFERENCE_RUN = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "runs", "matched_golden", "reference_run")
+
 
 def _measure_with_hist(num_bins=200):
     m = Measurements.zeros(num_bins, jnp.float64, num_particles=0)
@@ -42,25 +46,48 @@ def test_histogram_files_match_reference_format(tmp_path):
     # density normalization: sum(density)*width == 1
     assert (dens * 5e-9).sum() == pytest.approx(1.0, rel=1e-9)
 
-    # The committed reference artifacts parse with the same reader.
+    # The reference script's own committed outputs parse with the
+    # same reader.
     ref_edges = writers.read_reference_histogram(
-        "/root/reference/hist_x_axis_total_data.txt"
+        os.path.join(REFERENCE_RUN, "hist_x_axis_total_data.txt")
     )
     assert ref_edges.shape == (200,)
     assert ref_edges[1] - ref_edges[0] == pytest.approx(5e-9)
 
 
 def test_momentum_csv_matches_reference_format(tmp_path):
-    pd = pytest.importorskip("pandas")
+    from argon_monte_carlo_tpu.golden import read_ledger_csv
+
     path = str(tmp_path / "momentum_energy.csv")
     writers.write_momentum_energy_csv(
         np.arange(5.0) * 1e-23, np.ones(5) * -1e-18, np.ones(5) * 2e-19,
         path,
     )
-    ours = pd.read_csv(path, index_col=0)
-    ref = pd.read_csv("/root/reference/momentum_energy.csv", index_col=0)
-    assert list(ours.columns) == list(ref.columns)
-    assert ours.index[0] == ref.index[0] == 0
+    ref_path = os.path.join(REFERENCE_RUN, "momentum_energy.csv")
+    with open(path) as f, open(ref_path) as g:
+        ours_lines, ref_lines = f.read().splitlines(), g.read().splitlines()
+    assert ours_lines[0] == ref_lines[0] == ",Momentum,EnergyCold,EnergyHot"
+    assert ours_lines[1].split(",")[0] == ref_lines[1].split(",")[0] == "0"
+    ours, ref = read_ledger_csv(path), read_ledger_csv(ref_path)
+    assert list(ours) == list(ref) == ["Momentum", "EnergyCold", "EnergyHot"]
+    np.testing.assert_array_equal(ours["Momentum"], np.arange(5.0) * 1e-23)
+
+
+def test_momentum_csv_writes_exact_float_reprs(tmp_path):
+    """The plain writer keeps pandas' ``to_csv`` format: the index, then
+    each value as the shortest repr that round-trips its float64."""
+    vals = np.array([-1.35472744900562e-23, 1.0 / 3.0, 2e-19])
+    path = str(tmp_path / "m.csv")
+    writers.write_momentum_energy_csv(vals, vals * 2, vals * 3, path)
+    with open(path) as f:
+        lines = f.read().splitlines()
+    assert len(lines) == 4
+    assert lines[1] == (f"0,{vals[0]!r},{vals[0] * 2!r},{vals[0] * 3!r}"
+                        .replace("np.float64(", "").replace(")", ""))
+    assert "np.float64" not in "".join(lines)
+    back = np.loadtxt(path, delimiter=",", skiprows=1)
+    np.testing.assert_array_equal(back[:, 1], vals)
+    np.testing.assert_array_equal(back[:, 0], np.arange(3))
 
 
 def test_checkpoint_resume_bit_exact(tmp_path):

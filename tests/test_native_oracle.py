@@ -1,4 +1,4 @@
-"""Differential tests: JAX device kernels vs the native C++ oracle.
+"""Differential tests: the JAX physics functions vs the native C++ oracle.
 
 The oracle (native/oracle.cpp) is an independent scalar implementation of
 every physics kernel written directly from the equations; nothing here
@@ -141,3 +141,19 @@ def test_thermal_exchange_matches(oracle):
         new_speed, d_e = _thermal_exchange(vel, e_surf, alpha, MASS)
         want = oracle.thermal_speed(speed, e_surf, alpha, MASS)
         assert float(new_speed[0]) == pytest.approx(want, rel=1e-12)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("check", [
+    "check_pair_collisions", "check_specular_plane",
+    "check_specular_cylinder", "check_thermal_exchange",
+])
+def test_vectorized_oracle_checks(oracle, check, dtype):
+    """The row-batched comparisons chip_smoke.py runs on the card at
+    557,649 rows, here on CPU at 4,096 rows against the same tolerances
+    (native/compare.py states them and their reasons)."""
+    from argon_monte_carlo_tpu.native import compare
+
+    result = getattr(compare, check)(oracle, 4096, dtype)
+    assert result["ok"], result
+    assert result["tol"] == compare.TOL[dtype]
